@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from srt_tpu import RenderConfig, render
-from srt_tpu.render.api import _render_chunk
-from srt_tpu.core.sobol import sobol_points
-from srt_tpu.scene.library import cornell_boxes
-from srt_tpu.utils.checkpoint import (load_pytree, load_render_ckpt,
+from srt import RenderConfig, render
+from srt.render.api import _render_chunk
+from srt.core.sobol import sobol_points
+from srt.scene.library import cornell_boxes
+from srt.utils.checkpoint import (load_pytree, load_render_ckpt,
                                       render_resumable, save_pytree,
                                       save_render_ckpt)
 
@@ -36,7 +36,7 @@ def test_resume_from_partial_checkpoint(tmp_path):
     # would have computed it before dying.
     pts = jnp.asarray(sobol_points(cfg.spp, 2), jnp.float32)[:cfg.spp]
     pixel_ids = jnp.arange(cfg.width * cfg.height, dtype=jnp.int32)
-    from srt_tpu.scene.ir import SceneFlags
+    from srt.scene.ir import SceneFlags
     acc = np.asarray(_render_chunk(
         scene, cam, pixel_ids, 0, pts, cfg.seed, width=cfg.width,
         height=cfg.height, max_depth=cfg.max_depth, rr_start=cfg.rr_start,

@@ -1,7 +1,7 @@
 """PSNR / golden-comparison utilities."""
 import numpy as np
 
-from srt_tpu.utils.compare import box_downsample, golden_psnr, psnr
+from srt.utils.compare import box_downsample, golden_psnr, psnr
 
 
 def test_psnr_basics():
@@ -45,7 +45,7 @@ def test_bench_smoke():
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "SRT_TPU_NO_COMPILE_CACHE": "1"}
+           "SRT_NO_COMPILE_CACHE": "1"}
     out = subprocess.run(
         [sys.executable, "bench.py", "--scene", "cornell_boxes",
          "--width", "16", "--spp", "2", "--max-depth", "3",

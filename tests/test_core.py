@@ -2,11 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srt_tpu.core.vecmath import (cross, de_nan, dot, length, normalize,
+from srt.core.vecmath import (cross, de_nan, dot, length, normalize,
                                   reflect, refract_dir)
-from srt_tpu.core.onb import OrthonormalBasis
-from srt_tpu.core.rng import RaySampler, bits_to_uniform, hash_combine
-from srt_tpu.core.sobol import sobol_points
+from srt.core.onb import OrthonormalBasis
+from srt.core.rng import RaySampler, bits_to_uniform, hash_combine
+from srt.core.sobol import sobol_points
 
 
 def test_normalize_unit_length():

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from srt_tpu.diff import image_loss, render_pixels, splice
-from srt_tpu.render.camera import Camera
-from srt_tpu.scene.build import SceneBuilder
+from srt.diff import image_loss, render_pixels
+from srt.render.camera import Camera
+from srt.scene.build import SceneBuilder
 
 
 def _cornellette():
@@ -90,7 +90,7 @@ def test_grad_nonzero_for_material_params():
 def test_inverse_recovers_albedo():
     """Gradient descent pulls a wrong wall color toward the target color."""
     import optax
-    from srt_tpu.diff import make_train_step
+    from srt.diff import make_train_step
 
     scene, cam = _cornellette()
     w = h = 12
@@ -163,19 +163,9 @@ def test_grad_matches_finite_differences_light_position():
 def _fog_scene():
     """BASELINE config-5 scene: a light and a rough sphere inside
     constant-medium fog (constant_medium.h:19-50 free flight)."""
-    b = SceneBuilder()
-    floor = b.oren_nayar(b.constant((0.6, 0.5, 0.4)), 5.0)
-    ball_alb = b.constant((0.2, 0.4, 0.8))
-    ball = b.beckmann(ball_alb, 0.4, 0.4)
-    light = b.diffuse_light(b.constant((14.0, 14.0, 14.0)))
-    b.xz_rect(-6, 6, -6, 6, 0, floor)
-    b.sphere((0.0, 1.0, 0.0), 1.0, ball)
-    lid = b.xz_rect(-1.5, 1.5, -1.5, 1.5, 5.0, light, flip=True)
-    b.medium_sphere((0.0, 1.5, 0.0), 4.0, 0.12, b.constant((0.9, 0.9, 0.9)))
-    b.light_rect(lid)
-    cam = Camera.look_at(lookfrom=(0, 2.2, -7), lookat=(0, 1, 0), vfov=40.0,
-                         aspect=1.0)
-    return b.build(), cam
+    from srt.scene.library import fog_scene
+    scene, cam, _ = fog_scene(aspect=1.0)
+    return scene, cam
 
 
 def test_fog_inverse_recovers_albedo_roughness_light():
@@ -253,7 +243,7 @@ def test_fog_inverse_recovers_albedo_roughness_light():
     assert e1[2] < e0[2], ("roughness", e0, e1)
 
 
-def test_hybrid_kernel_vjp_matches_xla(monkeypatch):
+def test_hybrid_kernel_vjp_matches_xla():
     """The fused-kernel-forward / XLA-backward bounce
     (pallas/bounce_vjp.py): loss and gradient through the regen engine
     with the kernel (interpret mode) must match the pure-XLA path.
@@ -262,7 +252,7 @@ def test_hybrid_kernel_vjp_matches_xla(monkeypatch):
     through the estimator, so the contract is close agreement, not
     bitwise equality (see tests/test_fused_bounce.py for the per-bounce
     bound)."""
-    from srt_tpu.scene.ir import SceneFlags
+    from srt.scene.ir import SceneFlags
 
     scene, cam = _cornellette()
     assert SceneFlags.of(scene).fused_bounce  # eligible for the kernel
@@ -271,87 +261,20 @@ def test_hybrid_kernel_vjp_matches_xla(monkeypatch):
     target = render_pixels(scene, cam, pixel_ids, width=w, height=h,
                            spp=4, max_depth=3, seed=99)
 
-    def run():
+    def run(mode):
         def f(params):
             return image_loss(params, scene, cam, target, pixel_ids,
                               width=w, height=h, spp=4, max_depth=3,
-                              seed=7)
+                              seed=7, engine_kw=dict(pallas_mode=mode))
         params = {"tex_color": scene.tex_color,
                   "mat_params": scene.mat_params}
         loss, g = jax.value_and_grad(f)(params)
         return float(loss), np.asarray(g["tex_color"]), \
             np.asarray(g["mat_params"])
 
-    monkeypatch.setenv("SRT_TPU_PALLAS", "off")
-    loss_x, gtex_x, gmat_x = run()
-    monkeypatch.setenv("SRT_TPU_PALLAS", "interpret")
-    loss_k, gtex_k, gmat_k = run()
+    loss_x, gtex_x, gmat_x = run("off")
+    loss_k, gtex_k, gmat_k = run("interpret")
 
     assert abs(loss_k - loss_x) < 1e-4 + 1e-3 * abs(loss_x)
     np.testing.assert_allclose(gtex_k, gtex_x, rtol=5e-3, atol=1e-5)
     np.testing.assert_allclose(gmat_k, gmat_x, rtol=5e-3, atol=1e-5)
-
-
-def test_bwd_kernel_vjp_matches_xla_backward(monkeypatch):
-    """The backward Pallas kernel (pallas/bounce_bwd.py): gradients through
-    the regen engine with the SAME kernel forward but the one-launch kernel
-    backward must match the XLA-linearization backward (SRT_TPU_BWD_KERNEL
-    off), on a scene covering the sphere winner recompute, the media
-    replay, Beckmann/Oren-Nayar mat_params and an area light."""
-    from srt_tpu.scene.ir import SceneFlags
-    from srt_tpu.pallas.bounce_bwd import bwd_kernel_available
-
-    scene, cam = _fog_scene()
-    flags = SceneFlags.of(scene)
-    assert flags.fused_bounce and bwd_kernel_available(scene, flags)
-    w = h = 8
-    pixel_ids = jnp.arange(w * h, dtype=jnp.int32)
-    target = render_pixels(scene, cam, pixel_ids, width=w, height=h,
-                           spp=4, max_depth=4, seed=99)
-
-    def run():
-        def f(params):
-            return image_loss(params, scene, cam, target, pixel_ids,
-                              width=w, height=h, spp=4, max_depth=4,
-                              seed=7)
-        params = {"tex_color": scene.tex_color,
-                  "mat_params": scene.mat_params}
-        loss, g = jax.value_and_grad(f)(params)
-        return float(loss), np.asarray(g["tex_color"]), \
-            np.asarray(g["mat_params"])
-
-    monkeypatch.setenv("SRT_TPU_PALLAS", "interpret")
-    monkeypatch.setenv("SRT_TPU_BWD_KERNEL", "off")
-    loss_x, gtex_x, gmat_x = run()
-    monkeypatch.setenv("SRT_TPU_BWD_KERNEL", "on")
-    loss_k, gtex_k, gmat_k = run()
-
-    # identical kernel forward on both sides; the backward kernel
-    # linearizes the kernel's own math, the fallback linearizes the XLA
-    # bounce — agreement is float-level, not bitwise
-    assert abs(loss_k - loss_x) < 1e-5 + 1e-4 * abs(loss_x)
-    assert np.abs(gtex_k).sum() > 0.0 and np.abs(gmat_k).sum() > 0.0
-    np.testing.assert_allclose(gtex_k, gtex_x, rtol=2e-3, atol=1e-6)
-    np.testing.assert_allclose(gmat_k, gmat_x, rtol=2e-3, atol=1e-6)
-
-
-def test_bwd_kernel_gate_dispatch(monkeypatch):
-    """Gate regression: the backward kernel must engage for the headline
-    train scene (ball_scenes — image-textured emitter, the r5 regression
-    was a gate that silently excluded it) and must NOT engage for
-    triangle scenes or under SRT_TPU_BWD_KERNEL=off."""
-    from srt_tpu.pallas.bounce_bwd import bwd_kernel_available
-    from srt_tpu.scene.ir import SceneFlags
-    from srt_tpu.scene.library import get_scene
-
-    scene, _, _ = get_scene("ball_scenes", aspect=1.0)
-    flags = SceneFlags.of(scene)
-    assert bwd_kernel_available(scene, flags)
-
-    monkeypatch.setenv("SRT_TPU_BWD_KERNEL", "off")
-    assert not bwd_kernel_available(scene, flags)
-    monkeypatch.delenv("SRT_TPU_BWD_KERNEL")
-
-    tri, _, _ = get_scene("cornell_box", aspect=1.0)
-    tflags = SceneFlags.of(tri)
-    assert tri.n_tris and not bwd_kernel_available(tri, tflags)

@@ -2,14 +2,12 @@
 1-device and 8-device renders must be bit-identical, and the shard_map
 training step must agree with the single-device one."""
 import numpy as np
-import jax
 import jax.numpy as jnp
-import pytest
 
-from srt_tpu import render, RenderConfig
-from srt_tpu.dist import make_mesh, render_sharded
-from srt_tpu.render.camera import Camera
-from srt_tpu.scene.build import SceneBuilder
+from srt import render, RenderConfig
+from srt.dist import make_mesh, render_sharded
+from srt.render.camera import Camera
+from srt.scene.build import SceneBuilder
 
 
 def _scene():
@@ -26,8 +24,7 @@ def _scene():
     return b.build(), cam
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_sharded_render_bit_identical():
+def test_sharded_render_bit_identical(eight_devices):
     scene, cam = _scene()
     cfg = RenderConfig(width=16, height=16, spp=8, max_depth=4)
     img1 = np.asarray(render_sharded(scene, cam, cfg, make_mesh(1)))
@@ -35,8 +32,7 @@ def test_sharded_render_bit_identical():
     assert np.array_equal(img1, img8)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_sharded_matches_host_loop_render():
+def test_sharded_matches_host_loop_render(eight_devices):
     scene, cam = _scene()
     cfg = RenderConfig(width=16, height=16, spp=8, max_depth=4)
     a = np.asarray(render(scene, cam, cfg))
@@ -44,10 +40,9 @@ def test_sharded_matches_host_loop_render():
     assert np.allclose(a, b, atol=1e-6)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_train_step_sharded_matches_single():
+def test_train_step_sharded_matches_single(eight_devices):
     import optax
-    from srt_tpu.diff import make_train_step, render_pixels
+    from srt.diff import make_train_step, render_pixels
 
     scene, cam = _scene()
     w = h = 16

@@ -2,11 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srt_tpu.core.ray import Ray
-from srt_tpu.render.intersect import (intersect_scene, intersect_tris,
+from srt.core.ray import Ray
+from srt.render.intersect import (intersect_scene, intersect_tris,
                                       _tri_intersect, _BIG)
-from srt_tpu.scene.build import SceneBuilder
-from srt_tpu.render.camera import Camera
+from srt.scene.build import SceneBuilder
+from srt.render.camera import Camera
 
 
 def _rays(origins, directions):
@@ -143,9 +143,9 @@ def test_sphere_bvh_matches_brute_force():
     chunk sweep: static, moving, flipped, env spheres."""
     import numpy as np
 
-    from srt_tpu.render.intersect import (intersect_spheres,
+    from srt.render.intersect import (intersect_spheres,
                                           intersect_spheres_bvh)
-    from srt_tpu.scene.build import SceneBuilder
+    from srt.scene.build import SceneBuilder
 
     rng = np.random.default_rng(5)
     b = SceneBuilder()

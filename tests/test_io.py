@@ -7,10 +7,10 @@ reference assets are exercised when the mirrored checkout is present
 import numpy as np
 import pytest
 
-from srt_tpu.io.assets import find_asset
-from srt_tpu.io.mesh import (TriMesh, load_fbx, load_mesh, load_obj,
+from srt.io.assets import find_asset
+from srt.io.mesh import (TriMesh, load_fbx, load_mesh, load_obj,
                              load_ply, load_wrl)
-from srt_tpu.io import merl as merl_io
+from srt.io import merl as merl_io
 
 
 # ------------------------------------------------------------------- PLY
@@ -146,7 +146,7 @@ def test_trimesh_transform_winding_uv():
 # ------------------------------------------------------------------ MERL
 def test_merl_roundtrip_and_lookup(tmp_path):
     import jax.numpy as jnp
-    from srt_tpu.materials import merl as merl_mat
+    from srt.materials import merl as merl_mat
 
     n = merl_io.RES_THETA_H * merl_io.RES_THETA_D * merl_io.RES_PHI_D // 2
     rng = np.random.default_rng(0)
@@ -180,7 +180,7 @@ def test_fbx_first_mesh_only_parity_option():
     if not os.path.exists(fbx):
         import pytest
         pytest.skip("reference FBX not available")
-    from srt_tpu.io.mesh import load_mesh
+    from srt.io.mesh import load_mesh
     full = load_mesh(fbx)
     first = load_mesh(fbx, first_mesh_only=True)
     assert first.n_tris < full.n_tris

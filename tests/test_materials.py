@@ -3,11 +3,11 @@ Monte-Carlo, Beckmann D normalization, energy conservation checks."""
 import numpy as np
 import jax.numpy as jnp
 
-from srt_tpu.core.rng import RaySampler
-from srt_tpu.materials import materials as mats
-from srt_tpu.materials.microfacet import (beckmann_d, pdf_wh_visible,
+from srt.core.rng import RaySampler
+from srt.materials import materials as mats
+from srt.materials.microfacet import (beckmann_d, pdf_wh_visible,
                                           sample_wh_visible, g1)
-from srt_tpu.scene.build import SceneBuilder, roughness_to_alpha
+from srt.scene.build import SceneBuilder, roughness_to_alpha
 
 
 def _scene_with(mat_fn):
@@ -191,9 +191,9 @@ def test_ref_parity_estimator_formulas():
     the reference: Beckmann weight = D*G1/(4 cosO) (material.h:160-185) with
     pdf = D*G/(4 cosI cosO) (pdf.h:133-140); Oren-Nayar weight = cos/pi
     (material.h:134-138) with the full A+B formula as pdf (pdf.h:64-101)."""
-    from srt_tpu.core import frame
-    from srt_tpu.materials.microfacet import beckmann_d, g, g1
-    from srt_tpu.scene.ir import SceneFlags
+    from srt.core import frame
+    from srt.materials.microfacet import beckmann_d, g, g1
+    from srt.scene.ir import SceneFlags
 
     n = 1 << 12
     rng = np.random.default_rng(7)

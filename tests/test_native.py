@@ -4,19 +4,19 @@ import os
 import numpy as np
 import pytest
 
-from srt_tpu.accel import bvh as B
+from srt.accel import bvh as B
 
 
 def _build_both(verts, leaf_size=4):
-    prev = os.environ.pop("SRT_TPU_NO_NATIVE", None)
+    prev = os.environ.pop("SRT_NO_NATIVE", None)
     try:
-        os.environ["SRT_TPU_NO_NATIVE"] = "1"
+        os.environ["SRT_NO_NATIVE"] = "1"
         py = B.build_bvh(verts, leaf_size)
-        del os.environ["SRT_TPU_NO_NATIVE"]
+        del os.environ["SRT_NO_NATIVE"]
         nat = B._build_bvh_native(verts, leaf_size)
     finally:
         if prev is not None:
-            os.environ["SRT_TPU_NO_NATIVE"] = prev
+            os.environ["SRT_NO_NATIVE"] = prev
     return py, nat
 
 

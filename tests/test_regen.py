@@ -1,9 +1,9 @@
 """Regeneration engine vs scan engine: same estimator, same images."""
 import numpy as np
 
-from srt_tpu import RenderConfig, render
-from srt_tpu.render.regen import render_regen
-from srt_tpu.scene.library import cornell_boxes
+from srt import RenderConfig, render
+from srt.render.regen import render_regen
+from srt.scene.library import cornell_boxes
 
 
 def test_regen_matches_scan():
@@ -52,10 +52,10 @@ def test_regen_scan_matches_trace():
     import jax
     import jax.numpy as jnp
 
-    from srt_tpu.core.rng import RaySampler
-    from srt_tpu.render.integrator import trace
-    from srt_tpu.render.regen_scan import steps_for, trace_queue
-    from srt_tpu.scene.ir import SceneFlags
+    from srt.core.rng import RaySampler
+    from srt.render.integrator import trace
+    from srt.render.regen_scan import steps_for, trace_queue
+    from srt.scene.ir import SceneFlags
 
     from test_render import _cornell
     scene, cam = _cornell()

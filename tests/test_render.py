@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from srt_tpu import render, RenderConfig
-from srt_tpu.render.camera import Camera
-from srt_tpu.scene.build import SceneBuilder
+from srt import render, RenderConfig
+from srt.render.camera import Camera
+from srt.scene.build import SceneBuilder
 
 
 def _furnace_scene(albedo):
@@ -242,8 +242,8 @@ def test_medium_mesh_trace_size_bounded():
     the k/512 Python chunk unroll)."""
     import jax
 
-    from srt_tpu.core.ray import Ray
-    from srt_tpu.render.integrator import _mesh_medium_crossings
+    from srt.core.ray import Ray
+    from srt.render.integrator import _mesh_medium_crossings
 
     def build(n_quads):
         b = SceneBuilder()

@@ -9,10 +9,10 @@ import warnings
 import numpy as np
 import pytest
 
-from srt_tpu import RenderConfig, render
-from srt_tpu.io.assets import find_asset
-from srt_tpu.scene.library import SCENES, get_scene
-from srt_tpu.scene.teapot import create_teapot
+from srt import RenderConfig, render
+from srt.io.assets import find_asset
+from srt.scene.library import SCENES, get_scene
+from srt.scene.teapot import create_teapot
 
 _HAVE_ASSETS = find_asset("environment_map/sky_2.png") is not None
 
@@ -107,9 +107,9 @@ def test_box_instancing_rotate_translate():
     hitable.h:35-132): a rotated box renders a rotated silhouette and a
     pure translation matches an axis-aligned box built at the target."""
     import numpy as np
-    from srt_tpu import RenderConfig, render
-    from srt_tpu.render.camera import Camera
-    from srt_tpu.scene.build import SceneBuilder, rotation_y
+    from srt import RenderConfig, render
+    from srt.render.camera import Camera
+    from srt.scene.build import SceneBuilder, rotation_y
 
     def build(rotate, translate, direct=None):
         b = SceneBuilder()
@@ -148,9 +148,9 @@ def test_random_scene_smoke():
     """RTiOW-cover scene (Raytracing_n.cpp:108-176): checker ground,
     moving spheres, cubemap env faces as lights — smoke render."""
     import numpy as np
-    from srt_tpu import RenderConfig, render
-    from srt_tpu.scene.library import get_scene
-    from srt_tpu.scene.ir import MaterialType, TextureType
+    from srt import RenderConfig, render
+    from srt.scene.library import get_scene
+    from srt.scene.ir import MaterialType, TextureType
 
     scene, cam, info = get_scene("random_scene", aspect=1.0, max_tex=64,
                                  n_grid=4)

@@ -7,9 +7,9 @@ half/diff indices (brdf.h:17-61,106-153)."""
 import numpy as np
 import jax.numpy as jnp
 
-from srt_tpu.materials.textures import (perlin_noise, perlin_turb,
+from srt.materials.textures import (perlin_noise, perlin_turb,
                                         texture_value)
-from srt_tpu.scene.build import SceneBuilder
+from srt.scene.build import SceneBuilder
 
 
 def _scene_tex(fn):
@@ -151,7 +151,7 @@ def _scalar_half_diff_index(wo, wi):
 
 
 def test_merl_indices_match_scalar_port():
-    from srt_tpu.materials.merl import half_diff_indices
+    from srt.materials.merl import half_diff_indices
 
     rng = np.random.default_rng(4)
     n = 256
@@ -176,8 +176,8 @@ def test_merl_renders_and_differentiates():
     furnace (Lo = albedo) and carries gradients to the table."""
     import jax
 
-    from srt_tpu import RenderConfig, render
-    from srt_tpu.render.camera import Camera
+    from srt import RenderConfig, render
+    from srt.render.camera import Camera
 
     def build(scale=1.0):
         b = SceneBuilder()
@@ -198,8 +198,8 @@ def test_merl_renders_and_differentiates():
     assert abs(center - 1.0) < 0.05, center
 
     # Gradient w.r.t. the measured table flows and is positive.
-    from srt_tpu.core.rng import RaySampler
-    from srt_tpu.render.integrator import trace
+    from srt.core.rng import RaySampler
+    from srt.render.integrator import trace
 
     n = 256
     rng = np.random.default_rng(5)
@@ -223,14 +223,14 @@ def test_merl_renders_and_differentiates():
 
 def test_atlas_u32_packing_matches_f32():
     """The packed rgb8 atlas twin (Scene.atlas_u32, one gather per texel)
-    must reproduce the f32 atlas path to <= 1 ulp (TPU lowers /255.0 with
-    excess precision; on CPU it is bit-exact). Built for every u8-decoded
+    must reproduce the f32 atlas path to <= 1 ulp (an accelerator may
+    lower /255.0 with excess precision; on CPU it is bit-exact). Built for every u8-decoded
     image; float-sourced atlases fall back (atlas_u32 None)."""
     import numpy as np
     import jax.numpy as jnp
 
-    from srt_tpu.materials.textures import _image_value
-    from srt_tpu.scene.build import SceneBuilder
+    from srt.materials.textures import _image_value
+    from srt.scene.build import SceneBuilder
 
     rng = np.random.default_rng(5)
     img = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)

@@ -13,11 +13,11 @@ reference-defined camera, not just the default ``ball_scenes``:
 * replaces the assimp-backed ``model.h`` (``model.h:28-103``) with an
   interface-compatible pure-C++ ASCII-PLY loader (assimp is not available
   on this host). ``.FBX`` models are served from a PLY conversion of mesh 0
-  produced here with :mod:`srt_tpu.io.mesh` — mesh 0 only, mirroring the
+  produced here with :mod:`srt.io.mesh` — mesh 0 only, mirroring the
   reference's first-mesh-only behavior (``model.h:90,101``);
 * builds with ``g++ -O3 -march=native`` and times each scene's render
   (the reference's own elapsed-ms print, ``Raytracing_n.cpp:944-946``,
-  which excludes scene/BVH build — matching how the TPU numbers exclude
+  which excludes scene/BVH build — matching how srt's numbers exclude
   compile/build).
 
 Results land in ``BASELINE_CPP.json`` plus a markdown table for PERF.md.
@@ -319,7 +319,7 @@ def patch_main(src: str) -> str:
 def convert_fbx_models() -> None:
     """Mesh 0 of each .FBX -> ASCII PLY soup for the C++ stub loader."""
     sys.path.insert(0, REPO)
-    from srt_tpu.io.mesh import load_fbx
+    from srt.io.mesh import load_fbx
 
     outdir = os.path.join(BUILD, "converted")
     os.makedirs(outdir, exist_ok=True)

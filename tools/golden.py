@@ -54,17 +54,17 @@ def main() -> None:
                     help="override the output ppm filename")
     args = ap.parse_args()
 
-    from srt_tpu.utils.cache import enable as enable_cache
+    from srt.utils.cache import enable as enable_cache
     enable_cache()
 
     import numpy as np
 
-    from srt_tpu.io.image import read_ppm, write_ppm
-    from srt_tpu.render import film
-    from srt_tpu.render.api import RenderConfig, render
-    from srt_tpu.render.regen import render_regen
-    from srt_tpu.scene.library import get_scene
-    from srt_tpu.utils.compare import golden_psnr
+    from srt.io.image import read_ppm, write_ppm
+    from srt.render import film
+    from srt.render.api import RenderConfig, render
+    from srt.render.regen import render_regen
+    from srt.scene.library import get_scene
+    from srt.utils.compare import golden_psnr
 
     kw = {"first_mesh_only": True} if args.ref_parity else {}
     scene, camera, info = get_scene(args.scene, aspect=1.0, **kw)

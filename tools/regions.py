@@ -107,13 +107,13 @@ def main() -> None:
 
     import numpy as np
 
-    from srt_tpu.utils.cache import enable as enable_cache
+    from srt.utils.cache import enable as enable_cache
     enable_cache()
-    from srt_tpu.io.image import read_ppm, write_ppm
-    from srt_tpu.render import film
-    from srt_tpu.render.api import RenderConfig
-    from srt_tpu.render.regen import render_regen
-    from srt_tpu.scene.library import get_scene
+    from srt.io.image import read_ppm, write_ppm
+    from srt.render import film
+    from srt.render.api import RenderConfig
+    from srt.render.regen import render_regen
+    from srt.scene.library import get_scene
 
     floor, sky, soldier = masks(args.size)
     out = {"spp": args.spp, "size": args.size,

@@ -31,8 +31,8 @@ def main() -> None:
     ap.add_argument("--max-depth", type=int, default=50)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--engines", nargs="+", default=["regen", "scan"])
-    # defaults = the r5 tuned optimum for the kernel-backward path
-    # (PERF.md sweep: wf 16k / unroll 16 -> 1.405M rays/s at 256^2)
+    # defaults: the step budget tuned for the kernel-backward path on the
+    # earlier accelerator; not yet re-swept on the GPU (ROADMAP §1 item 6)
     ap.add_argument("--wavefront", type=int, default=1 << 14)
     ap.add_argument("--depth-budget", type=float, default=4.0)
     ap.add_argument("--drain", type=int, default=12)
@@ -41,15 +41,16 @@ def main() -> None:
                          "bounce, checkpointed) step (regen engine)")
     args = ap.parse_args()
 
-    from srt_tpu.utils.cache import enable as enable_cache
+    from srt.utils.cache import enable as enable_cache
     enable_cache()
 
     import jax
     import numpy as np
     import optax
 
-    from srt_tpu.diff.inverse import make_train_step
-    from srt_tpu.scene.library import get_scene
+    from srt.diff.inverse import make_train_step
+    from srt.scene.library import get_scene
+    from srt.utils.device import device_info
 
     scene, camera, _ = get_scene(args.scene, aspect=1.0)
     w = args.width
@@ -59,7 +60,7 @@ def main() -> None:
     optimizer = optax.adam(1e-2)
     out = {"metric": "train_step_rays_per_sec", "scene": args.scene,
            "width": w, "spp": args.spp, "max_depth": args.max_depth,
-           "device": jax.devices()[0].device_kind, "engines": {}}
+           "device": device_info(), "engines": {}}
 
     for engine in args.engines:
         params = {"tex_color": scene.tex_color}
@@ -72,14 +73,15 @@ def main() -> None:
                                spp=args.spp, max_depth=args.max_depth,
                                engine=engine, engine_kw=ekw)
         t0 = time.time()
-        params, opt_state, loss = step(params, opt_state, target, 0)
-        loss = float(loss)  # sync
+        params, opt_state, loss = jax.block_until_ready(
+            step(params, opt_state, target, 0))
         warm = time.time() - t0
         t0 = time.time()
         for r in range(args.reps):
-            params, opt_state, loss = step(params, opt_state, target, r + 1)
-            loss = float(loss)
+            params, opt_state, loss = jax.block_until_ready(
+                step(params, opt_state, target, r + 1))
         dt = (time.time() - t0) / args.reps
+        loss = float(loss)
         out["engines"][engine] = {
             "rays_per_sec": round(rays / dt, 1),
             "step_wall_s": round(dt, 3), "warmup_s": round(warm, 1),
